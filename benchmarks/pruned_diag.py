@@ -3,12 +3,13 @@
 
 The reference ships profiling mains that expose its pruning machinery's
 behavior (``ProfileWAND.cpp``, ``benchmarks/multiblock_regression_test.cpp``);
-this is the TPU equivalent for the block-max pruned batch path
+this is the same for the block-max pruned batch path
 (``search/row_engine.py``): for each batch shape it reports the
 MetricsRegistry pruning counters (pruned vs exhaustive dispatches,
 certificate escalations, compact-bank fallbacks, vocabulary partitions,
-tiles rescored) plus the derived escalation rate — the silent perf cliffs
-VERDICT r2 flagged, made visible per run.
+tiles rescored) plus the derived escalation rate — the silent perf
+cliffs, made visible per run. It counts; it does not time, so it runs
+on any backend.
 
 Run: python benchmarks/pruned_diag.py [--docs 1000000] [--batch 1024]
 Prints ONE JSON line to stdout; per-shape detail goes to stderr.
@@ -26,9 +27,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from diagon_tpu.bench.cache import bench_cache_dir
-
-CACHE_DIR = bench_cache_dir()
 
 
 def log(*a):
@@ -51,11 +49,9 @@ def main():
     ap.add_argument("--mixed-pool", type=int, default=160)
     args = ap.parse_args()
 
-    import jax
+    from diagon_tpu.bench.cache import enable_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(CACHE_DIR, "jax_cache")
-    )
+    enable_compile_cache()
     import bench
 
     seg, _ = bench.build_or_load_segment(args.docs, fresh_stats=False)

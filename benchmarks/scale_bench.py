@@ -1,17 +1,11 @@
 #!/usr/bin/env python
 """Scale benchmark: OR-20 + mixed-batch throughput at 1M/10M docs.
 
-One scale tier per process: bench.py runs this as a capped subprocess so
-each tier gets a clean HBM (a 10M-doc tier sharing a process with the
-1M tier's banks OOMs a 16 GB chip — the round-3 RESOURCE_EXHAUSTED).
-Standalone use keeps knobs for batch size / tile budget experiments.
-
-Prints up to TWO JSON lines to stdout — an interim or20-only line as
-soon as the or20 phase finishes (so a caller's subprocess timeout during
-the mixed phase can still recover the tier), then the full line:
+``run(parse_args([...]))`` measures one tier in the calling process
+(bench.py runs its tiers that way); standalone use keeps knobs for batch
+size / tile budget experiments and prints one JSON line:
   {"or20_qps": N, "or20_vs_baseline": N, "mixed_qps": N,
-   "mixed_vs_baseline": N, "parity": "bit-exact"}
-Consumers must take the LAST JSON line (bench.py does).
+   "mixed_vs_baseline": N, "parity": "bit-exact", "device": {...}}
 """
 
 from __future__ import annotations
@@ -26,9 +20,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from diagon_tpu.bench.cache import bench_cache_dir
-
-CACHE_DIR = bench_cache_dir()
 BASELINE_OR20_QPS = 1e6 / 165.0
 
 
@@ -45,7 +36,7 @@ def _mem_gb(jax) -> str:
         return "n/a"
 
 
-def main():
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--batch", type=int, default=1024)
@@ -59,18 +50,26 @@ def main():
                     "shrunk at 10M docs where the pool's banks must fit "
                     "HBM; the reference's own query tables are a few "
                     "dozen fixed terms, reuters_benchmark.cpp:193-268)")
-    args = ap.parse_args()
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="allow a dry run on the CPU (its output names it)")
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
+    from diagon_tpu.bench.cache import enable_compile_cache
+    from diagon_tpu.bench.device import measured_device
+
+    enable_compile_cache()
+    device = measured_device(args.cpu_rehearsal)
+    out = run(args)
+    out["device"] = device
+    print(json.dumps(out))
+
+
+def run(args) -> dict:
+    """Measure one tier; returns its result dict."""
     import jax
-
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(CACHE_DIR, "jax_cache")
-    )
-    # tiny per-shape ops (concatenate/dynamic_slice, ~0.4 s each) dodge the
-    # default 1.0 s persistence threshold and recompile EVERY run — dozens
-    # per cold batch across partition groups
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    log(f"jax backend: {jax.default_backend()}")
 
     import bench
 
@@ -121,15 +120,12 @@ def main():
     log(f"or20 trials ms/batch: {[round(t * 1e3, 2) for t in ts]}")
     out["or20_qps"] = round(qps)
     out["or20_vs_baseline"] = round(qps / BASELINE_OR20_QPS, 2)
-    # interim line: if the mixed phase below blows the caller's subprocess
-    # cap (compile + OOM retries at 10M), the or20 tier result is already
-    # on stdout for bench.py to recover
-    print(json.dumps(out), flush=True)
 
     if not args.skip_mixed:
-        # the batch's vocabulary banks (~10 B/doc/row) must fit HBM next
-        # to the index; at 10M docs a 16 GB chip holds the index plus ONE
-        # modest compact bank, so the mixed pool shrinks until one bank
+        # the batch's vocabulary banks (~10 B/doc/row) must fit the
+        # executors' 16 GB-era cache budgets next to the index; at 10M
+        # docs that holds the index plus ONE modest compact bank, so the
+        # mixed pool shrinks until one bank
         # covers the whole batch (partitioned groups would thrash the LRU
         # — every dispatch rebuilds every group's banks) and an OOM
         # retries with a smaller pool instead of failing the phase
@@ -191,7 +187,7 @@ def main():
         if k.startswith("search.")
     }
     log(f"pruning counters: {json.dumps(counters)}")
-    print(json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

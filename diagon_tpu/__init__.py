@@ -1,4 +1,4 @@
-"""diagon_tpu — a TPU-native search framework (inverted index + columnar store).
+"""diagon_tpu — a search framework in JAX (inverted index + columnar store).
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 model-collapse/diagon (a C++ Lucene-style search library, see
@@ -6,23 +6,23 @@ model-collapse/diagon (a C++ Lucene-style search library, see
 phrase / range queries, ClickHouse-style columnar granule storage with skip
 indexes, and a segment-based write/commit/merge lifecycle.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
 - **Term dictionary**: host-side hash table (term -> term_id) instead of the
   reference's FST/trie (reference: ``src/core/include/diagon/util/PackedFST.h``).
 - **Postings**: fixed-width bit-packed 128-doc blocks stored as dense uint32
-  word arrays resident in HBM, decoded on the fly by vectorized shift/mask
+  word arrays resident in device memory, decoded by vectorized shift/mask
   kernels (reference: StreamVByte / PFOR streams,
   ``src/core/include/diagon/util/BitPacking.h``).
-- **Scoring**: block-at-a-time masked BM25 over whole posting blocks on the
-  VPU with dense score scatter-add and on-chip top-k, instead of
+- **Scoring**: dense per-term score rows summed in oracle order, with a
+  two-phase pruned batch path and on-device top-k, instead of
   doc-at-a-time Block-Max WAND heaps (reference:
   ``src/core/include/diagon/search/WANDScorer.h``).
 - **Block-max pruning**: a dense ``[block]`` max-impact table prunes blocks
   *before* the gather — the moral equivalent of the reference's ``.skp``
   skip entries (``Lucene104PostingsWriter.h``).
 - **Parallelism**: segments shard across a ``jax.sharding.Mesh``; per-device
-  top-k results merge with ``all_gather`` over ICI (the reference is
+  top-k results merge with ``all_gather`` (the reference is
   single-process; its per-leaf search loop ``IndexSearcher.cpp:76`` is the
   seam this replaces).
 

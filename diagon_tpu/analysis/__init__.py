@@ -1,6 +1,6 @@
 """Text analysis: tokenizers, token filters, analyzers.
 
-TPU-native equivalent of the reference's analysis layer
+Accelerator-native equivalent of the reference's analysis layer
 (``src/core/include/analysis/``, SURVEY.md section 2.5). Tokenization is a
 host-side concern (strings never reach the device); the hot ASCII path has a
 C++ implementation in ``diagon_tpu/native`` with this pure-Python fallback.

@@ -115,7 +115,7 @@ def cjk_bigram_tokenize(text: str) -> List[str]:
     bigrams (a single character if the run has length 1); everything else
     follows the standard alnum-run rules, lowercased.
 
-    This is the TPU port's replacement for the reference's dictionary
+    This is this framework's replacement for the reference's dictionary
     segmenter (``JiebaTokenizer.h:40-46`` MIX-mode cppjieba, which needs a
     ~100 MB dictionary): overlapping bigrams are the classic
     self-contained CJK indexing scheme (Lucene ``CJKAnalyzer``) — every

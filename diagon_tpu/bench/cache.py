@@ -1,27 +1,18 @@
-"""Durable bench cache location.
+"""Where the benchmarks keep what they build.
 
-Round-4 lesson (VERDICT r4 missing #1): ``~/.cache/diagon_tpu`` is wiped
-between driver rounds, so the official bench run found no cached scale
-segments and skipped its flagship tiers. The fix is two-pronged:
+Expensive deterministic artifacts (scale segments, columnar tables,
+oracle results) live in ``<repo>/.bench_cache``, which ``.gitignore``
+lists: nothing in it is source, and everything is rebuilt by
+``scripts/build_scale.py`` and the benchmarks themselves.
+``DIAGON_CACHE_DIR`` moves it.
 
-1. bench.py now BUILDS missing tiers in-run when the budget allows
-   (self-sufficiency), and
-2. expensive deterministic artifacts (scale segments, columnar tables,
-   oracle results, the jax compile cache) persist in an IN-REPO cache
-   directory ``<repo>/.bench_cache`` that survives those wipes. It is
-   gitignored — nothing in it is source; everything is reproducible via
-   scripts/build_scale.py et al.
-
-``bench_cache_dir()`` is the write location. ``find_cached(name)``
-checks the repo cache first, then the legacy ``~/.cache/diagon_tpu``
-so artifacts built by older rounds are still found.
+``enable_compile_cache()`` is the one place an entry point sets up JAX's
+persistent compilation cache.
 """
 
 from __future__ import annotations
 
 import os
-
-_LEGACY = os.path.expanduser("~/.cache/diagon_tpu")
 
 
 def _repo_root() -> str:
@@ -31,28 +22,37 @@ def _repo_root() -> str:
 
 
 def bench_cache_dir() -> str:
-    """The durable cache directory (created on first use)."""
+    """The benchmark cache directory (created on first use)."""
     d = os.environ.get("DIAGON_CACHE_DIR") or os.path.join(
         _repo_root(), ".bench_cache"
     )
-    try:
-        os.makedirs(d, exist_ok=True)
-    except OSError:  # pragma: no cover - read-only checkout
-        d = _LEGACY
-        os.makedirs(d, exist_ok=True)
+    os.makedirs(d, exist_ok=True)
     return d
 
 
 def find_cached(name: str) -> str | None:
-    """Locate ``name`` (file or directory) in the repo cache, falling
-    back to the legacy ~/.cache location. Returns None when absent."""
-    for base in (bench_cache_dir(), _LEGACY):
-        p = os.path.join(base, name)
-        if os.path.exists(p):
-            return p
-    return None
+    """Path of ``name`` (file or directory) in the cache, or None."""
+    p = os.path.join(bench_cache_dir(), name)
+    return p if os.path.exists(p) else None
 
 
 def cache_path(name: str) -> str:
-    """Path for writing ``name`` into the durable cache."""
+    """Path for writing ``name`` into the cache."""
     return os.path.join(bench_cache_dir(), name)
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its path.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here. Otherwise the cache is the fixed in-checkout
+    path ``<repo>/.bench_cache/jax_cache``: the path is part of what a
+    cached entry is found by, so it must not move between runs."""
+    d = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if d:
+        return d
+    import jax
+
+    d = os.path.join(_repo_root(), ".bench_cache", "jax_cache")
+    jax.config.update("jax_compilation_cache_dir", d)
+    return d

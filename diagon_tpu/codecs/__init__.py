@@ -1,6 +1,6 @@
 """Codecs: packed on-disk / in-HBM formats.
 
-TPU-native replacement of the reference codec layer (SURVEY.md section 2.3).
+Accelerator-native replacement of the reference codec layer (SURVEY.md section 2.3).
 Instead of variable-width byte streams (StreamVByte / PFOR,
 ``util/BitPacking.h``) decoded doc-at-a-time, every format here is a set of
 dense, fixed-dtype arrays that can be memory-mapped from disk and

@@ -1,11 +1,11 @@
 """Fixed-width bit packing into uint32 word streams.
 
-The TPU-native replacement for the reference's PFOR/StreamVByte encodings
+The accelerator-native replacement for the reference's PFOR/StreamVByte encodings
 (``util/BitPacking.h:11-44``, ``util/StreamVByte.h``): values are packed
 little-endian at a fixed bits-per-value within each section; a value may
 straddle a word boundary, in which case its low bits live in word ``i`` and
 its high bits in word ``i+1``. This layout decodes with two gathers + shifts
-+ masks — branch-free, fully vectorizable on the VPU, no data-dependent
++ masks — branch-free, fully vectorizable on the device, no data-dependent
 lengths (the property the reference's byte-oriented codecs lack).
 
 Numpy encode lives here; the JAX/device decode lives in

@@ -1,6 +1,6 @@
 """Packed posting-block format — the heart of the index.
 
-TPU-native replacement for the reference's Lucene104 postings
+Accelerator-native replacement for the reference's Lucene104 postings
 (``codecs/lucene104/Lucene104PostingsWriter.h:23-90``: 128-doc PFOR blocks in
 a ``.doc`` byte stream plus ``.skp`` skip entries). Here a segment's postings
 for one field are a **struct-of-arrays**: every posting block is described by

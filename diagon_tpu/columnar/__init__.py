@@ -3,10 +3,10 @@
 Equivalent of the reference's ClickHouse-style layer (SURVEY.md section 2.8:
 ``IColumn``/``ColumnVector`` hierarchy, 8192-row granules with marks,
 minmax/bloom skip indexes, pluggable compression, and the ColumnarStore
-used by ClickBench). TPU redesign: columns are dense arrays resident in
+used by ClickBench). Accelerator redesign: columns are dense arrays resident in
 HBM; granule skip indexes are dense ``[n_granules]`` min/max and bloom
 arrays so pruning is one vectorized comparison; scan/filter/aggregate are
-masked whole-granule kernels on the VPU instead of per-row loops.
+masked whole-granule device kernels instead of per-row loops.
 """
 
 from diagon_tpu.columnar.column import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Device columnar scan/filter/aggregate kernels with REAL granule skipping.
 
-The TPU form of the reference's 3-level granule evaluation
+The device form of the reference's 3-level granule evaluation
 (``benchmarks/columnar/ColumnarStore.h:1-47``: SKIP / BULK / decompress+scan):
 
 - **SKIP that saves HBM traffic**: a range predicate first evaluates against
@@ -20,7 +20,7 @@ The TPU form of the reference's 3-level granule evaluation
 - Sums: int sums accumulate per-granule in i32 (exact) and combine in f32
   (exact when the table-total fits 2**24; documented f32 rounding beyond —
   the host ``ColumnarTable`` scan stays the exact-int64 oracle). Float
-  columns ride as one f32 plane; their sums are f32, as on any TPU path.
+  columns ride as one f32 plane; their sums are f32.
 
 Dispatch/collect split: ``range_agg`` is one fused program returning one
 packed device vector, so a serving loop can chain queries without a

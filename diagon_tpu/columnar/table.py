@@ -2,7 +2,7 @@
 
 Granularity follows the reference (8192 rows/granule,
 ``IMergeTreeIndexGranularity.h:14-50`` Constant variant). Skip indexes are
-dense per-granule arrays (the TPU form of ``MergeTreeIndexMinMax`` /
+dense per-granule arrays (the device form of ``MergeTreeIndexMinMax`` /
 ``MergeTreeIndexBloomFilter``): pruning a predicate over ALL granules is a
 single vectorized comparison, no per-granule objects.
 """

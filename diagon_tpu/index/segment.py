@@ -47,7 +47,7 @@ class DocValuesData:
 class PointsData:
     """1-D numeric point index: value-sorted columns (the BKD replacement).
 
-    The reference builds a 1-D BKD tree (``BKDWriter.h:22-58``); on TPU the
+    The reference builds a 1-D BKD tree (``BKDWriter.h:22-58``); on the device the
     equivalent is simply the (value, docid) pairs sorted by value — range
     queries become two binary searches + a docid slice, vectorizable and
     mergeable by concatenation+sort.

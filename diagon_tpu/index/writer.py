@@ -208,6 +208,10 @@ class IndexWriter:
             return None
         seg = flush_memory_index(self._mem, self._next_segment_name())
         self._mem = MemoryIndex()
+        self._append_segment(seg)
+        return seg
+
+    def _append_segment(self, seg: SegmentData) -> None:
         from diagon_tpu.codecs.registry import for_name
 
         files = for_name(self.config.codec).write_segment(self.directory, seg)
@@ -215,7 +219,19 @@ class IndexWriter:
         self._infos.segments.append(
             SegmentInfo(name=seg.name, num_docs=seg.num_docs, files=files)
         )
-        return seg
+
+    def add_segment(self, seg: SegmentData) -> int:
+        """Add a finished segment built outside the writer (for example by
+        the bulk builder in ``bench/bulk_build.py``): the reference's
+        ``addIndexes`` role. The segment is renamed to the writer's next
+        segment name, written through the codec, and becomes visible to
+        readers at the next commit."""
+        with self._mutex:
+            self._ensure_open()
+            seg.name = self._next_segment_name()
+            self._append_segment(seg)
+            self._seq_no += seg.num_docs
+            return self._seq_no
 
     def flush(self) -> None:
         """Flush buffered docs to a new segment (no segments_N write)."""

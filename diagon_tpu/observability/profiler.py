@@ -80,7 +80,7 @@ class QueryProfiler:
     @staticmethod
     @contextlib.contextmanager
     def trace(log_dir: str):
-        """Device-level trace via jax.profiler (TPU timeline)."""
+        """Device-level trace via jax.profiler (device timeline)."""
         import jax
 
         jax.profiler.start_trace(log_dir)

@@ -2,7 +2,7 @@
 
 Equivalent of the reference's storage-tier subsystem
 (``storage/StorageTier.h``, ``TierManager.h``, ``LifecyclePolicy.h``,
-``TierMigrationService.h`` — SURVEY.md section 2.10), re-cast for TPU: the
+``TierMigrationService.h`` — SURVEY.md section 2.10), re-cast for an accelerator: the
 tiers are DEVICE (HBM-resident arrays, searchable at full speed), HOST
 (numpy SegmentData in RAM, searchable by the oracle path), and DISK
 (``.bnd`` files, must be read before use). The manager enforces an HBM

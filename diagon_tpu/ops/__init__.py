@@ -1,5 +1,5 @@
-"""Device ops: bit unpacking, block scoring, top-k.
+"""Device ops: bit unpacking, phase-1 approximate scoring, top-k.
 
-Pure-XLA implementations live here; Pallas kernels for the hot paths are in
-``diagon_tpu/ops/pallas``. Both are tested against the numpy codecs.
+Plain XLA implementations live here; Pallas kernels for the GPU are in
+``diagon_tpu/ops/pallas``, each tested against its plain form.
 """

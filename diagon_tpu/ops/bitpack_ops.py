@@ -10,7 +10,7 @@ may straddle word boundaries. The decode of lane ``i`` at width ``bits`` is
     value = (lo | hi) & ((1 << bits) - 1)
 
 — two in-window gathers + shifts + mask, branch-free and identical for all
-128 lanes of a block: exactly the shape the TPU VPU wants (compare the
+128 lanes of a block: exactly the shape vector hardware wants (compare the
 reference's sequential StreamVByte control-byte walk, StreamVByte.h:15-35).
 """
 

@@ -1,1 +1,2 @@
-"""Pallas TPU kernels for the hot ops."""
+"""Pallas kernels for the GPU (Triton route), each beside its plain-XLA
+reference in ``diagon_tpu/ops``."""

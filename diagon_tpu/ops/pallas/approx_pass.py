@@ -1,360 +1,159 @@
-"""Pallas fused approx-scoring pass: matmul + tile-max + hit count.
+"""Phase 1 as one Pallas kernel on the Triton route (GPU).
 
-Phase 1 of the pruned batch kernels (row_engine) needs, for every
-(query, 128-doc tile): the maximum approximate score, and per query the
-exact live-match count. Done in XLA this materializes [Q, D] matmul
-outputs in HBM (at Q=1024, D=1M that is 4 GB per role matrix); these
-kernels keep each [Q, CHUNK] product block in VMEM and write only the
-[G, Q] tile maxima plus a [Q] running hit count, so HBM traffic
-collapses to one read of the (batch-compact) bf16 bank.
+The plain form (``ops/approx.py``) writes every [Q, chunk] f32 product
+to device memory and reads it back for the per-tile max and count —
+XLA cannot fuse a reduction into the matrix product. This kernel keeps
+each product in registers: one program owns ``TPB`` 128-doc tiles x
+``BQ`` queries, multiplies each bf16 bank tile [U8, 128] by the bf16
+indicator block [U8, BQ] with f32 accumulation (``pl.dot``), reduces
+the 128 docs of the tile to their maximum and match count, and writes
+only the tile maxima plus a per-program PARTIAL hit count, which XLA
+sums afterwards (GPU programs run in parallel in no fixed order, so
+nothing carries between them).
 
-The banks here are BATCH-COMPACT ([U8, D], U = unique clause rows used
-by the batch): phase 1's matmul K-dim scales with the batch's
-vocabulary, not the corpus's heavy-term count.
+Presence (``bank > 0``) and the ``rq*256 + sh`` decode are derived
+in-kernel exactly as in the plain form, so the two agree bit for bit on
+counts and up to f32 summation order on maxima.
 
-Layout notes: TPU blocks want trailing dims (8k, 128m); the indicator
-matrices arrive TRANSPOSED ([U8, Q]) and tile maxima are produced [S, Q]
-so Q=batch rides the 128-lane axis.
+Shapes: Triton tensors have power-of-two dims and ``pl.dot`` wants every
+dim >= 16. The row axis runs in steps of ``KB`` rows, so U8 is padded
+with zero rows (they add nothing to any product) to ``bank_rows(U8)``,
+and Q to a multiple of the query block. Executors build their banks at
+``bank_rows`` already, so the row pad is a no-op on the serving path.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+from diagon_tpu.ops.approx import KB, LANE, bank_rows
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
+def _pow2(n: int, floor: int) -> int:
+    return max(floor, 1 << max(0, n - 1).bit_length())
 
 
-def _chunk_for(D: int, cap: int) -> int:
-    """Largest legal doc-chunk <= cap. The live mask rides as [ng, 128]
-    blocks of an [S, 128] array, and Mosaic requires the sublane block
-    dim to be 1 or a multiple of 8 (ng = 2..7 fails to lower), so the
-    chunk is 128 or a multiple of 1024 that divides D."""
-    c = (cap // 1024) * 1024
-    while c >= 1024:
-        if D % c == 0:
-            return c
-        c -= 1024
-    if D % 128 == 0:
-        return 128
-    raise ValueError(f"D={D} must be a multiple of 128")
+# queries per program by role count: each role adds a [128, BQ] f32
+# accumulator, so BQ shrinks with the roles to keep the accumulators at
+# 64 KB of registers per program
+BQ = {0: 128, 1: 64, 3: 32}
+TPB = 8  # 128-doc tiles per program
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def _dot_ct(b, a_t, out_dtype=jnp.float32):
-    """[U8, CH]^T . [U8, Q] -> [CH, Q] — the TRANSPOSED product.
+def _kernel(*refs, n_roles: int, tpb: int, kb: int):
+    bank_ref, live_ref, asc_ref = refs[:3]
+    role_refs = refs[3 : 3 + n_roles]
+    params_ref, tmax_ref, hits_ref = refs[3 + n_roles :]
+    bq = asc_ref.shape[1]
+    nk = asc_ref.shape[0] // kb
+    nreq = params_ref[0, :]  # [BQ]
+    msm = params_ref[1, :]
 
-    Producing [CH, Q] puts each 128-doc tile on the SUBLANE-major axis:
-    the tile reduction becomes 16 elementwise vreg maxes + a 3-pass
-    8-sublane epilogue (one read of the product) instead of a 7-pass
-    cross-lane log-shuffle over every product value — the tile-max was
-    the phase-1 wall, not the MXU."""
-    return jax.lax.dot_general(
-        b,
-        a_t,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=out_dtype,
-    )
+    def body(t, cnt):
+        # the row axis runs in KB-row steps so the bank and indicator
+        # slices stay small at any U8
+        def kstep(k, accs):
+            rows = pl.ds(k * kb, kb)
+            b = bank_ref[rows, pl.ds(t * LANE, LANE)]  # [KB, 128] bf16
+            out = [accs[0] + pl.dot(b, asc_ref[rows, :], trans_a=True)]
+            if n_roles:
+                pres = jnp.where(b > 0, 1.0, 0.0).astype(b.dtype)
+                out += [
+                    a + pl.dot(pres, r[rows, :], trans_a=True)
+                    for a, r in zip(accs[1:], role_refs)
+                ]
+            return tuple(out)
 
+        zero = jnp.zeros((LANE, bq), jnp.float32)
+        accs = jax.lax.fori_loop(0, nk, kstep, (zero,) * (1 + n_roles))
+        ap = accs[0]  # [128, BQ] f32
+        lv = live_ref[pl.ds(t * LANE, LANE)] > 0  # [128]
+        if n_roles == 0:
+            m = (ap > 0) & lv[:, None]
+        elif n_roles == 1:
+            cc = accs[1]
+            rc = jnp.floor(cc * jnp.float32(1.0 / 256.0))
+            oc = cc - rc * jnp.float32(256.0)
+            m = (
+                (rc == nreq[None, :]) & (oc >= msm[None, :])
+                & (cc > 0) & lv[:, None]
+            )
+        else:
+            rc, oc, nc = accs[1:]
+            m = (
+                (rc == nreq[None, :]) & (oc >= msm[None, :])
+                & (nc == 0) & ((rc + oc) > 0) & lv[:, None]
+            )
+        c = jnp.sum(m.astype(jnp.int32), axis=0)  # [BQ]
+        mx = jnp.max(ap, axis=0)
+        if n_roles:
+            mx = jnp.where(c > 0, mx, jnp.float32(-1.0))
+        tmax_ref[pl.ds(t, 1), :] = mx[None, :]
+        return cnt + c
 
-def _kernel_or(at_ref, bank_ref, live_ref, tmax_ref, hits_ref):
-    c = pl.program_id(0)
-    # product accumulates f32 (Mosaic requires 32-bit matmul acc); the
-    # tile max rounds ONCE to bf16 on output (rel <= 2^-9; bank rounding
-    # adds <= 2^-9): (1+2^-9)^2 < 1 + 2^-7 = _APPROX_RELEPS, so the
-    # inflated tile bound still dominates the exact score. The [S, Q]
-    # output + its transpose halve. match = (product > 0) stays EXACT
-    # (hit counts are part of the bit-exactness contract).
-    ap = _dot_ct(bank_ref[...], at_ref[...])  # [CH, Q] f32
-    q = ap.shape[1]
-    g = ap.reshape(-1, 128, q)  # [ng, 128(docs), Q]
-    lv = live_ref[...].reshape(-1, 128)[:, :, None]  # [ng, 128, 1]
-    match = (g > 0) & (lv > 0)
-    tmax_ref[...] = jnp.max(g, axis=1).astype(jnp.bfloat16)  # [ng, Q]
-    cnt_t = jnp.sum(match, axis=1, dtype=jnp.int32)  # [ng, Q]
-    cnt = jnp.sum(cnt_t, axis=0, keepdims=True)  # [1, Q] (2-D for mosaic)
-
-    @pl.when(c == 0)
-    def _():
-        hits_ref[...] = jnp.zeros_like(hits_ref)
-
-    hits_ref[0:1, :] = hits_ref[0:1, :] + cnt
-
-
-def _kernel_bool(
-    asc_ref, arq_ref, ash_ref, ang_ref, bank_ref, params_ref,
-    live_ref, tmax_ref, hits_ref,
-):
-    """General-boolean phase 1: approx score + EXACT per-doc clause
-    presence counts (0/1 products accumulate exactly in f32), reduced to
-    feasibility-gated tile maxima and exact hit counts. params rows:
-    0 = num_required, 1 = min_should.
-
-    The 0/1 presence tile is DERIVED from the score bank in-VMEM
-    ((bank > 0) — identical values to the materialized presence bank
-    this replaces), so the boolean phase reads ONE bank from HBM
-    instead of two and the batch never stores a presence copy.
-
-    Grid is (query-blocks, doc-chunks) with the doc axis INNER so the
-    accumulating hits block stays VMEM-resident across consecutive
-    steps (outputs revisited non-consecutively are not preserved);
-    four [CH, QB] f32 products + masks live in VMEM at once, so QB
-    keeps them under the ~16 MB/core budget at any batch size. The
-    bank is re-read once per query block — the price of exact
-    accumulation; QB=256 keeps that at <= ceil(Q/256) bank reads."""
-    c = pl.program_id(1)
-    bank = bank_ref[...]
-    # compare in f32: Mosaic cannot lower cmpf on packed bf16 vectors
-    # ("Target does not support this comparison"); the extension is a
-    # VPU-register op, the bank is still read from HBM once as bf16
-    pres = jnp.where(
-        bank.astype(jnp.float32) > 0, jnp.float32(1.0), jnp.float32(0.0)
-    ).astype(jnp.bfloat16)
-    ap = _dot_ct(bank, asc_ref[...])  # [CH, Q]
-    rc = _dot_ct(pres, arq_ref[...])
-    oc = _dot_ct(pres, ash_ref[...])
-    nc = _dot_ct(pres, ang_ref[...])
-    nreq = params_ref[0:1, :]  # [1, Q] broadcasts over [ng, 128, Q]
-    msm = params_ref[1:2, :]
-    q = ap.shape[1]
-    g = ap.reshape(-1, 128, q)  # [ng, 128(docs), Q]
-    rc3 = rc.reshape(-1, 128, q)
-    oc3 = oc.reshape(-1, 128, q)
-    nc3 = nc.reshape(-1, 128, q)
-    lv = live_ref[...].reshape(-1, 128)[:, :, None]
-    # compare AFTER the f32 reshapes (mosaic cannot reshape i1 vectors)
-    m = (
-        (rc3 == nreq)
-        & (oc3 >= msm)
-        & (nc3 == 0)
-        & ((rc3 + oc3) > 0)
-        & (lv > 0)
-    )
-    feasible = jnp.any(m, axis=1)  # [ng, Q]
-    tmax = jnp.where(
-        feasible, jnp.max(g, axis=1), jnp.float32(-1.0)
-    )
-    tmax_ref[...] = tmax
-    cnt_t = jnp.sum(m, axis=1, dtype=jnp.int32)  # [ng, Q]
-    cnt = jnp.sum(cnt_t, axis=0, keepdims=True)  # [1, Q]
-
-    @pl.when(c == 0)
-    def _():
-        hits_ref[...] = jnp.zeros_like(hits_ref)
-
-    hits_ref[0:1, :] = hits_ref[0:1, :] + cnt
+    cnt = jax.lax.fori_loop(0, tpb, body, jnp.zeros((bq,), jnp.int32))
+    hits_ref[...] = cnt[None, :]
 
 
-def pallas_approx_select(
-    a_t: jnp.ndarray,  # bf16 [U8, Q] transposed clause-indicator matrix
-    bank: jnp.ndarray,  # bf16 [U8, D] batch-compact bank
-    live: jnp.ndarray,  # f32 [D]
-    *,
-    interpret: bool = False,
-):
-    """(tile_max f32 [Q, S], hits i32 [Q]) with S = D/128 — pure-OR.
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def approx_select_triton(bank, live, a_sc_t, roles=(), params_t=None, *,
+                         interpret: bool = False):
+    """Same contract as ``ops.approx.approx_select_xla``: returns
+    (tile_max f32 [Q, D/128], hits i32 [Q]). ``interpret`` runs the
+    kernel in the Pallas interpreter (CPU tests)."""
+    U8, D = bank.shape
+    Q = a_sc_t.shape[1]
+    G = D // LANE
+    n_roles = len(roles)
+    u8p = bank_rows(U8)
+    bq = min(BQ[n_roles], _pow2(Q, 16))
+    tpb = TPB
+    while G % tpb:
+        tpb //= 2
+    qp = -(-Q // bq) * bq
+    if params_t is None:
+        params_t = jnp.zeros((2, Q), jnp.float32)
 
-    The tile max rides in bf16 (see _kernel_or): callers inflate by
-    _APPROX_RELEPS which covers the extra rounding."""
-    U8, Q = a_t.shape
-    _, D = bank.shape
-    # one [CH, Q] f32 product (+ masks) in VMEM: cap CH so it stays
-    # well under the ~16 MB/core budget at large Q
-    chunk = _chunk_for(D, max(1024, min(4096, (1 << 21) // max(Q, 1))))
-    S = D // 128
-    ng = chunk // 128
-    n = D // chunk
-    live2 = live.reshape(S, 128)
+    def pad(a, rows):
+        return jnp.pad(a, ((0, rows - a.shape[0]), (0, qp - a.shape[1])))
 
-    tmax_t, hits = pl.pallas_call(
-        _kernel_or,
-        grid=(n,),
-        in_specs=[
-            pl.BlockSpec((U8, Q), lambda c: (0, 0)),
-            pl.BlockSpec((U8, chunk), lambda c: (0, c)),
-            pl.BlockSpec((ng, 128), lambda c: (c, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((ng, Q), lambda c: (c, 0)),
-            pl.BlockSpec((8, Q), lambda c: (0, 0)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((S, Q), jnp.bfloat16),
-            jax.ShapeDtypeStruct((8, Q), jnp.int32),
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-    )(a_t, bank, live2)
-    return tmax_t.T.astype(jnp.float32), hits[0]
-
-
-def _kernel_bool2(
-    asc_ref, acb_ref, bank_ref, params_ref, live_ref,
-    tmax_ref, hits_ref,
-):
-    """No-negation boolean phase 1 with the required/should presence
-    counts FUSED into one matmul: the combined indicator carries
-    rq*256 + sh per (row, query) — exact in bf16 when no row serves
-    both roles for one query (the builder checks; 4161-style mixed
-    digits are NOT bf16-exact) — and the f32 product decodes back to
-    exact counts (cc = rc*256 + oc <= 64*256 + 64 < 2^24). Halves the
-    phase-1 matmuls of the general boolean kernel for the dominant
-    no-MUST_NOT query population. Presence is derived in-VMEM from the
-    score bank ((bank > 0), bit-identical to the old materialized
-    copy), so the bank is read from HBM once."""
-    c = pl.program_id(1)
-    bank = bank_ref[...]
-    # f32 compare: Mosaic cannot lower cmpf on packed bf16 (see
-    # _kernel_bool)
-    pres = jnp.where(
-        bank.astype(jnp.float32) > 0, jnp.float32(1.0), jnp.float32(0.0)
-    ).astype(jnp.bfloat16)
-    ap = _dot_ct(bank, asc_ref[...])  # [CH, Q]
-    cc = _dot_ct(pres, acb_ref[...])  # [CH, Q] rc*256 + oc
-    nreq = params_ref[0:1, :]
-    msm = params_ref[1:2, :]
-    q = ap.shape[1]
-    g = ap.reshape(-1, 128, q)
-    cc3 = cc.reshape(-1, 128, q)
-    rc3 = jnp.floor(cc3 * jnp.float32(1.0 / 256.0))
-    oc3 = cc3 - rc3 * jnp.float32(256.0)
-    lv = live_ref[...].reshape(-1, 128)[:, :, None]
-    m = (
-        (rc3 == nreq)
-        & (oc3 >= msm)
-        & (cc3 > 0)
-        & (lv > 0)
-    )
-    feasible = jnp.any(m, axis=1)
-    tmax_ref[...] = jnp.where(
-        feasible, jnp.max(g, axis=1), jnp.float32(-1.0)
-    )
-    cnt = jnp.sum(
-        jnp.sum(m, axis=1, dtype=jnp.int32), axis=0, keepdims=True
-    )
-
-    @pl.when(c == 0)
-    def _():
-        hits_ref[...] = jnp.zeros_like(hits_ref)
-
-    hits_ref[0:1, :] = hits_ref[0:1, :] + cnt
-
-
-def pallas_approx_select_bool2(
-    a_sc_t: jnp.ndarray,  # bf16 [U8, Q]
-    a_cb_t: jnp.ndarray,  # bf16 [U8, Q] combined rq*256 + sh indicator
-    bank: jnp.ndarray,  # bf16 [U8, D]
-    params_t: jnp.ndarray,  # f32 [8, Q]
-    live: jnp.ndarray,  # f32 [D]
-    *,
-    interpret: bool = False,
-):
-    """(feasibility-gated tile_max f32 [Q, S], exact hits i32 [Q]) for
-    no-MUST_NOT boolean batches — 2 matmuls instead of 4, one bank read
-    (presence derived in-kernel)."""
-    U8, Q = a_sc_t.shape
-    _, D = bank.shape
-    QB = min(128 if Q <= 128 else 256, _round_up(Q, 128))
-    Qp = _round_up(Q, QB)
-    if Qp != Q:
-        pad = lambda a: jnp.pad(a, ((0, 0), (0, Qp - Q)))
-        a_sc_t, a_cb_t, params_t = pad(a_sc_t), pad(a_cb_t), pad(params_t)
-    chunk = _chunk_for(D, 2048)  # 2 products -> twice _kernel_bool's CH
-    S = D // 128
-    ng = chunk // 128
-    n = D // chunk
-    live2 = live.reshape(S, 128)
-
+    if u8p != U8:
+        bank = jnp.pad(bank, ((0, u8p - U8), (0, 0)))
+    ins = [pad(a, u8p) for a in (a_sc_t, *roles)]
+    params = pad(params_t[:2].astype(jnp.float32), 2)
+    nq, nc = qp // bq, G // tpb
     amap = lambda qb, c: (0, qb)
-    bmap = lambda qb, c: (0, c)
     tmax_t, hits = pl.pallas_call(
-        _kernel_bool2,
-        grid=(Qp // QB, n),
+        functools.partial(
+            _kernel, n_roles=n_roles, tpb=tpb, kb=min(u8p, KB)
+        ),
+        grid=(nq, nc),
         in_specs=[
-            pl.BlockSpec((U8, QB), amap),
-            pl.BlockSpec((U8, QB), amap),
-            pl.BlockSpec((U8, chunk), bmap),
-            pl.BlockSpec((8, QB), amap),
-            pl.BlockSpec((ng, 128), lambda qb, c: (c, 0)),
+            pl.BlockSpec((u8p, tpb * LANE), lambda qb, c: (0, c)),
+            pl.BlockSpec((tpb * LANE,), lambda qb, c: (c,)),
+            *[pl.BlockSpec((u8p, bq), amap) for _ in ins],
+            pl.BlockSpec((2, bq), amap),
         ],
         out_specs=(
-            pl.BlockSpec((ng, QB), lambda qb, c: (c, qb)),
-            pl.BlockSpec((8, QB), lambda qb, c: (0, qb)),
+            pl.BlockSpec((tpb, bq), lambda qb, c: (c, qb)),
+            pl.BlockSpec((1, bq), lambda qb, c: (c, qb)),
         ),
         out_shape=(
-            jax.ShapeDtypeStruct((S, Qp), jnp.float32),
-            jax.ShapeDtypeStruct((8, Qp), jnp.int32),
+            jax.ShapeDtypeStruct((G, qp), jnp.float32),
+            jax.ShapeDtypeStruct((nc, qp), jnp.int32),
+        ),
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES
         ),
         interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-    )(a_sc_t, a_cb_t, bank, params_t, live2)
-    return tmax_t[:, :Q].T, hits[0, :Q]
-
-
-def pallas_approx_select_bool(
-    a_sc_t: jnp.ndarray,  # bf16 [U8, Q]
-    a_rq_t: jnp.ndarray,
-    a_sh_t: jnp.ndarray,
-    a_ng_t: jnp.ndarray,
-    bank: jnp.ndarray,  # bf16 [U8, D] compact score bank
-    params_t: jnp.ndarray,  # f32 [8, Q] rows 0=num_required, 1=min_should
-    live: jnp.ndarray,  # f32 [D]
-    *,
-    interpret: bool = False,
-):
-    """(feasibility-gated tile_max f32 [Q, S], exact hits i32 [Q]);
-    presence derived in-kernel from the score bank."""
-    U8, Q = a_sc_t.shape
-    _, D = bank.shape
-    # query block: 4 [CH, QB] f32 products + masks in VMEM at once
-    # (QB=256, CH=1024 -> 4 MB of products); pad Q up to a QB multiple
-    # (padded queries have all-zero indicator columns -> no matches)
-    QB = min(128 if Q <= 128 else 256, _round_up(Q, 128))
-    Qp = _round_up(Q, QB)
-    if Qp != Q:
-        pad = lambda a: jnp.pad(a, ((0, 0), (0, Qp - Q)))
-        a_sc_t, a_rq_t, a_sh_t, a_ng_t, params_t = (
-            pad(a_sc_t), pad(a_rq_t), pad(a_sh_t), pad(a_ng_t),
-            pad(params_t),
-        )
-    chunk = _chunk_for(D, 1024)
-    S = D // 128
-    ng = chunk // 128
-    n = D // chunk
-    live2 = live.reshape(S, 128)
-
-    amap = lambda qb, c: (0, qb)
-    bmap = lambda qb, c: (0, c)
-    tmax_t, hits = pl.pallas_call(
-        _kernel_bool,
-        grid=(Qp // QB, n),
-        in_specs=[
-            pl.BlockSpec((U8, QB), amap),
-            pl.BlockSpec((U8, QB), amap),
-            pl.BlockSpec((U8, QB), amap),
-            pl.BlockSpec((U8, QB), amap),
-            pl.BlockSpec((U8, chunk), bmap),
-            pl.BlockSpec((8, QB), amap),
-            pl.BlockSpec((ng, 128), lambda qb, c: (c, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((ng, QB), lambda qb, c: (c, qb)),
-            pl.BlockSpec((8, QB), lambda qb, c: (0, qb)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((S, Qp), jnp.float32),
-            jax.ShapeDtypeStruct((8, Qp), jnp.int32),
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-    )(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t, live2)
-    return tmax_t[:, :Q].T, hits[0, :Q]
+        name=f"approx_select_r{n_roles}",
+    )(bank, live, *ins, params)
+    return tmax_t[:, :Q].T, hits.sum(axis=0)[:Q]

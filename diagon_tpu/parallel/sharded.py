@@ -4,7 +4,7 @@ One segment shard per device along mesh axis ``seg``. The full query step —
 per-shard row-bank scoring (see ``search/row_engine.py``), local top-k,
 cross-device ``all_gather`` of (score, global-docid) pairs, exact
 lexicographic merge — is one ``shard_map``-ped jitted program, so XLA
-schedules the ICI collective against local compute.
+schedules the collective against local compute.
 
 The reference is single-process; its per-leaf loop (``IndexSearcher.cpp:76``)
 + docBase merge is the seam this parallelizes (SURVEY.md section 2.13).
@@ -21,6 +21,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from diagon_tpu.index.segment import SegmentData
+from diagon_tpu.ops.approx import bank_rows
 from diagon_tpu.search.bm25 import BM25Similarity
 from diagon_tpu.search.engine import make_tf_table
 from diagon_tpu.search.query import BooleanQuery, Occur, Query, TermQuery
@@ -143,8 +144,7 @@ def _sharded_compact_build(heavy_banks, light_banks, srcidx, *, mesh, axis):
 
 @partial(
     jax.jit,
-    static_argnames=("k", "B", "mesh", "axis", "interpret", "pure_or",
-                     "fused2"),
+    static_argnames=("k", "B", "mesh", "axis", "pure_or", "fused2"),
 )
 def _sharded_pruned_search(
     compact_t,  # f32 [S, G, U8, LANE]
@@ -173,7 +173,6 @@ def _sharded_pruned_search(
     B: int,
     mesh: Mesh,
     axis: str,
-    interpret: bool,
     pure_or: bool = False,
     fused2: bool = False,
 ):
@@ -207,7 +206,6 @@ def _sharded_pruned_search(
             cidx[0], cflags[0], live[0],
             a_sc_t[0], a_rq_t[0], a_sh_t[0], a_ng_t[0], params_t[0],
             bool_params[0], k=k, B=B, boolean=not pure_or,
-            interpret=interpret,
             a_cb_t=a_cb_t[0] if fused2 else None,
         )  # [Q, 2k+2]
         safe = fusedp[:, 2 * k + 1] > 0
@@ -306,7 +304,8 @@ class ShardedSearcher:
         self._idf_cache: Dict[str, np.float32] = {}
         self._phrase_execs: Dict[int, object] = {}
 
-        # per-shard row indexes with a COMMON doc padding (1024 = pallas TILE)
+        # per-shard row indexes with a COMMON doc padding (1024 docs = 8
+        # tiles, the phase-1 kernel's doc block)
         d_pad = max(
             1024,
             ((max(s.num_docs for s in self.shards) + 1023) // 1024) * 1024,
@@ -688,7 +687,7 @@ class ShardedSearcher:
         maxU = max(1 + len(used[si]) + n_light[si] for si in range(S))
         if maxU > self.COMPACT_MAX_ROWS:
             return None
-        U8 = -(-maxU // 8) * 8
+        U8 = bank_rows(maxU)
         srcidx = np.zeros((S, U8), np.int32)
         cidx = np.zeros((S, Q, Tq), np.int32)
         a = {
@@ -774,10 +773,8 @@ class ShardedSearcher:
         ) = self._plans(queries)
         if compact is not None:
             G = self.num_docs_pad // LANE
-            Q = len(queries)
-            smem_cap = max(32, (512 << 10) // (4 * max(Q, 1)))
             B = self.prune_B_override or min(
-                G, smem_cap, max(PRUNE_B0, -(-k // LANE) + 1, G // 512)
+                G, max(PRUNE_B0, -(-k // LANE) + 1, G // 512)
             )
             scores, docs, hits, esc_n = _sharded_pruned_search(
                 compact["compact_t"],
@@ -805,7 +802,6 @@ class ShardedSearcher:
                 B=B,
                 mesh=self.mesh,
                 axis=self.axis,
-                interpret=jax.default_backend() == "cpu",
                 pure_or=compact["pure_or"],
                 fused2=compact["fused2"],
             )

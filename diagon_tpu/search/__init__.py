@@ -1,7 +1,7 @@
 """Search layer: queries, BM25, device execution, collectors.
 
 Equivalent of the reference's ``diagon/search/`` (SURVEY.md section 2.7),
-re-designed block-at-a-time for the TPU VPU instead of doc-at-a-time
+re-designed block-at-a-time for vectorized device code instead of doc-at-a-time
 iterator chains.
 """
 

@@ -1,7 +1,7 @@
 """Device-resident segment index.
 
 Moves a flushed :class:`SegmentData`'s packed arrays into device memory
-(HBM) once; queries then run entirely on device. This is the TPU analogue of
+once; queries then run entirely on device. This is the device analogue of
 the reference's mmap'd zero-copy segment files (``MMapDirectory.h``): the
 packed word stream IS the in-memory format, no per-query decompression
 state.
@@ -176,15 +176,9 @@ def load_field(fd: SegmentFieldData, num_docs_pad: int, device=None) -> DeviceFi
 def load_segment(seg: SegmentData, device=None, keep_source: bool = True) -> DeviceSegment:
     """Upload a segment's search structures to the device.
 
-    Doc padding is 1024 (the pallas row-sum TILE; a multiple of the 128
-    lane width everything else assumes) for small segments, 4096 once
-    the segment exceeds 64k docs: the approx-pass kernels' doc chunk
-    must divide D (_chunk_for), and a 1024-aligned 1M-doc segment forced
-    chunk=1024 — 977 grid steps, ~2 ms of per-step overhead on small-Q
-    deduped batches — where 4096-aligned runs 245. Small segments keep
-    the 1024 pad so CPU interpret-mode tests don't 4x their work."""
-    align = 4096 if seg.num_docs > (64 << 10) else 1024
-    num_docs_pad = max(1024, _round_up(seg.num_docs, align))
+    Doc padding is 1024: eight 128-doc tiles, the phase-1 kernel's doc
+    block (ops/pallas/approx_pass.py)."""
+    num_docs_pad = max(1024, _round_up(seg.num_docs, 1024))
     fields = {
         name: load_field(fd, num_docs_pad, device)
         for name, fd in seg.fields.items()

@@ -4,7 +4,7 @@ Mirrors the reference's query zoo (``search/``, SURVEY.md section 2.7):
 TermQuery, BooleanQuery (MUST / SHOULD / FILTER / MUST_NOT +
 minimumNumberShouldMatch), PhraseQuery (slop = 0 exact), MatchAllDocsQuery,
 NumericRangeQuery (doc-values scan), PointRangeQuery (point index). The
-reference's Weight/Scorer iterator machinery does not translate to TPU;
+reference's Weight/Scorer iterator machinery does not translate to batched device code;
 queries compile to block-at-a-time device plans in
 ``diagon_tpu/search/engine.py`` instead.
 """

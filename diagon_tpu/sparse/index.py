@@ -131,9 +131,8 @@ class SparseSearcher:
         pp = fd.postings
         F = int(pp.block_max_freq.max(initial=1)) + 1
         lut = np.tile(np.arange(F, dtype=np.float32), 128)
-        # pad to a 1024 multiple: the pruned phase-1 pallas kernel wants
-        # doc chunks that are 1024 multiples (128-doc chunks lower but
-        # crawl); live masks exclude the pad docs
+        # pad to a 1024 multiple (8 tiles, the phase-1 kernel's doc
+        # block); live masks exclude the pad docs
         num_docs_pad = max(1024, ((seg.num_docs + 1023) // 1024) * 1024)
         ridx = RowFieldIndex(
             pp, fd.norms, num_docs_pad, seg.live_docs, lut, device
@@ -142,8 +141,9 @@ class SparseSearcher:
         # clauses are (tid, weight) light entries the executor decodes on
         # device into the batch-compact bank). The zero heavy bank + its
         # tile aux switch the PRUNED batch path on: phase 1 then runs the
-        # MXU approx matmul over the compact bank — the SindiIndex blocked
-        # accumulation role (reference SindiIndex.h:20-70) done TPU-style.
+        # approx matmul over the compact bank — the SindiIndex blocked
+        # accumulation role (reference SindiIndex.h:20-70) as a matrix
+        # product.
         ridx.heavy_bank = jax.device_put(
             jnp.zeros((1, num_docs_pad), jnp.float32), device
         )

@@ -1,7 +1,7 @@
 """Store layer: directories, checksummed array files, locks.
 
 Equivalent of the reference's store layer (``diagon/store/``, SURVEY.md
-section 2.1) redesigned around the TPU data path: index artifacts are dense
+section 2.1) redesigned around the device data path: index artifacts are dense
 numpy arrays in a checksummed container that memory-maps zero-copy
 (``np.memmap``) and uploads to HBM unchanged — the mmap'd file IS the
 device-ready format (reference: ``MMapDirectory.h`` zero-copy reads).

@@ -6,7 +6,7 @@ values, points, stored rows) plus a JSON meta header. Properties:
 
 - **Zero-copy**: each array section is 64-byte aligned, so a reader mmaps
   the file and takes dtype views — no decode step; ``jax.device_put`` of a
-  view uploads straight to HBM (the TPU analogue of the reference's
+  view uploads straight to HBM (the device analogue of the reference's
   ``MMapDirectory`` zero-copy design, ``MMapDirectory.h:38-54``).
 - **Checksummed**: crc32 per array + header crc in the footer (the role of
   the reference's ``CodecUtil`` header/footer framing, ``CodecUtil.h``).

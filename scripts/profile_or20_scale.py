@@ -1,13 +1,11 @@
 #!/usr/bin/env python
-"""Root-cause probe for the 10M or20 regression (18.4x -> 11.5x).
+"""Cost of Q-bucket padding on the 10M-doc or20 batch.
 
-The 18.36x run (RESULTS.md 2026-08-17T19:50) predates Q-bucket padding
-(commit ad42672): a homogeneous [or20]*1024 batch then deduped to ONE
-unique plan, while current code pads the deduped batch to the Q=8
-bucket — 8x the phase-1 product columns and 8x the phase-2 tile
-rescores at 10M docs. This script times the or20 batch with the stock
-bucketing and with an identity bucket (Q=1, the pre-ad42672 behavior)
-on the same segment and code, isolating the padding cost.
+A homogeneous [or20]*1024 batch dedups to ONE unique plan, which the
+executor pads to the Q=8 bucket — 8x the phase-1 product columns and 8x
+the phase-2 tile rescores. This script times the or20 batch with the
+stock bucketing and with an identity bucket (Q=1) on the same segment
+and code, isolating the padding cost.
 
 Usage: python scripts/profile_or20_scale.py [--docs 10000000]
 """
@@ -23,10 +21,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from diagon_tpu.bench.cache import bench_cache_dir
-
-CACHE_DIR = bench_cache_dir()
-
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
@@ -36,14 +30,16 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=10_000_000)
     ap.add_argument("--batch", type=int, default=1024)
+
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="allow a dry run on the CPU (its output names it)")
     args = ap.parse_args()
 
-    import jax
+    from diagon_tpu.bench.cache import enable_compile_cache
+    from diagon_tpu.bench.device import measured_device
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(CACHE_DIR, "jax_cache")
-    )
-    log(f"backend={jax.default_backend()}")
+    enable_compile_cache()
+    log(f"device={measured_device(args.cpu_rehearsal)}")
 
     import bench
     from diagon_tpu.bench.queries import REUTERS_QUERIES
@@ -74,7 +70,7 @@ def main():
 
     measure("stock Q buckets (Q=8 pad)")
 
-    # pre-ad42672 behavior: no Q padding for the deduped batch
+    # no Q padding for the deduped batch
     stock = row_engine.RowExecutor._bucket_q
     row_engine.RowExecutor._bucket_q = staticmethod(lambda q: q)
     try:

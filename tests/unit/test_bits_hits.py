@@ -1,5 +1,5 @@
-"""pallas_bits_hits vs a numpy oracle: exact hit counts from presence
-bitmaps for pure-OR and general (min_should<=1) boolean batches."""
+"""bits_hits vs a numpy oracle: exact hit counts from presence bitmaps
+for pure-OR and general (min_should<=1) boolean batches."""
 
 import numpy as np
 import pytest
@@ -7,11 +7,11 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from diagon_tpu.ops.pallas.bits_hits import (  # noqa: E402
+from diagon_tpu.search.row_engine import (  # noqa: E402
     MODE_DEAD,
     MODE_REQ,
     MODE_SHO,
-    pallas_bits_hits,
+    bits_hits,
 )
 
 
@@ -93,12 +93,11 @@ def test_bits_hits_matches_numpy(seed):
 
     want = _oracle_hits(rows, cidx, cflags, qmode)
     got = np.asarray(
-        pallas_bits_hits(
+        bits_hits(
             jnp.asarray(bits),
             jnp.asarray(cidx),
             jnp.asarray(cflags),
             jnp.asarray(qmode),
-            interpret=True,
         )
     )
     np.testing.assert_array_equal(got, want)

@@ -126,9 +126,8 @@ def test_on_demand_phase0_engages_and_bit_exact(od_searcher):
     """The phase-0 route (tile-maxima selection + bitmap hit counts)
     must actually engage for min_should<=1 on-demand batches — and stay
     bit-exact across pure-OR, MUST+SHOULD, FILTER, MUST_NOT, and a
-    dead query (absent required term). Phase-0 is opt-in (default off:
-    the bf16 phase 1 measured faster at 10M docs once the LRU kept
-    entries resident), so enable it on the executors first."""
+    dead query (absent required term). Phase-0 is opt-in (default off),
+    so enable it on the executors first."""
     s, oracle = od_searcher
     for ex in s._ctx("body").row_executors:
         if ex is not None:

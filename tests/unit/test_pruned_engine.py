@@ -69,7 +69,7 @@ QUERIES = [
 @pytest.mark.parametrize("approx_min_q", [1, 1000])
 @pytest.mark.parametrize("b0", [2, 8, 10_000])
 def test_pruned_or_parity(b0, approx_min_q):
-    """approx_min_q=1 routes phase 1 through the MXU matmul selection;
+    """approx_min_q=1 routes phase 1 through the matmul selection;
     1000 uses per-clause tile-UB rows. Both must be bit-exact."""
     seg = _corpus()
     searcher = IndexSearcher([seg])
@@ -266,34 +266,6 @@ def test_pruned_general_boolean_fuzz():
     assert checked >= 20
 
 
-def test_ring_kernel_matches_resident(monkeypatch):
-    """The rescore has two pallas kernels (all-resident slabs vs the
-    NSLOT DMA ring for batches whose slab set exceeds VMEM). Force the
-    ring by zeroing the resident budget and assert bit-exact parity —
-    keeps the large-batch fallback covered now that small batches always
-    take the resident kernel."""
-    from diagon_tpu.ops.pallas import gather_rescore as gr
-
-    seg = _corpus()
-    oracle = OracleSearcher([seg])
-    queries = [_or_query(t) for t in QUERIES]
-
-    def run():
-        searcher = IndexSearcher([seg])
-        _force_pruned(searcher, "body", 8, approx_min_q=1)
-        return searcher.search_batch(queries, 10)
-
-    resident = run()
-    monkeypatch.setattr(gr, "RESIDENT_VMEM_BUDGET", 0)
-    ring = run()
-    for terms, a, b in zip(QUERIES, resident, ring):
-        want = oracle.search(_or_query(terms), 10)
-        assert a.doc_ids() == b.doc_ids() == want.doc_ids(), terms
-        assert a.total_hits == b.total_hits == want.total_hits
-        for o, x, y in zip(want.score_docs, a.score_docs, b.score_docs):
-            assert o.score == x.score == y.score
-
-
 @pytest.mark.parametrize("b0", [16, 2])
 def test_fused_bool2_kernel_parity(b0):
     """No-MUST_NOT boolean batches take the FUSED 2-matmul phase-1
@@ -390,88 +362,74 @@ def test_q_bucket_padding_parity():
             assert g.total_hits == want.total_hits, (n, q)
 
 
-@pytest.mark.parametrize("boolean", [False, True])
-def test_union_rescore_matches_gather(boolean):
-    """The sorted-pair union rescore kernel (one DMA per DISTINCT
-    selected tile) must be bit-identical to the per-(q,b) gather kernel:
-    same [Q, B, LANE] scores (and presence-count lanes) for arbitrary
-    cidx/tsel/flags, including duplicate tiles across queries and the
-    zero row."""
+def _rescore_numpy(bank, cidx, tsel, flags):
+    """Sequential per-lane f32 adds in clause order — the oracle's
+    accumulation — over the selected tiles of a tile-major bank."""
+    Q, Tq = cidx.shape
+    B = tsel.shape[1]
+    LANE = bank.shape[2]
+    outs = [np.zeros((Q, B, LANE), np.float32) for _ in range(4)]
+    for q in range(Q):
+        for t in range(Tq):
+            rows = bank[tsel[q], cidx[q, t]]  # [B, LANE]
+            fl = 1 if flags is None else int(flags[q, t])
+            pres = (rows > 0).astype(np.float32)
+            for bit, (o, v) in enumerate(
+                zip(outs, (rows, pres, pres, pres))
+            ):
+                if fl & (1 << bit):
+                    o[q] = (o[q] + v).astype(np.float32)
+    return outs[0] if flags is None else tuple(outs)
+
+
+@pytest.mark.parametrize(
+    "boolean,Q,B,Tq,U8",
+    [
+        (False, 8, 1, 4, 16),  # one tile per query
+        (False, 13, 8, 20, 32),  # ragged Q, wide OR
+        (False, 64, 24, 5, 16),  # heavy tile overlap across queries
+        (True, 8, 1, 4, 16),
+        (True, 13, 8, 20, 32),
+        (True, 64, 24, 5, 16),
+        (True, 3, 40, 8, 64),  # B wider than Q
+        (False, 1, 6, 4, 128),
+    ],
+)
+def test_rescore_compact_matches_sequential_numpy(boolean, Q, B, Tq, U8):
+    """Phase 2 (rescore_compact) vs a numpy sequential-add reference:
+    bit-identical [Q, B, LANE] scores and, for booleans, req/sho/neg
+    presence counts, for arbitrary cidx/tsel/flags including the zero
+    row and tiles shared across queries."""
     import jax.numpy as jnp
 
-    from diagon_tpu.ops.pallas.gather_rescore import (
-        pallas_gather_rescore,
-        pallas_union_rescore,
-        union_rescore_supported,
-    )
+    from diagon_tpu.search.row_engine import rescore_compact
 
-    rng = np.random.Generator(np.random.PCG64(3))
-    G, U8, LANE, Q, Tq, B = 24, 16, 128, 64, 5, 8
-    assert union_rescore_supported(Q, B)
-    bank = rng.normal(size=(G, U8, LANE)).astype(np.float32)
+    rng = np.random.Generator(np.random.PCG64(Q * 131 + B * 7 + Tq))
+    G, LANE = 48, 128
+    bank = rng.normal(size=(G, U8, LANE)).astype(np.float32) * 3
     bank[:, 0, :] = 0.0  # row 0 is the zero row
     bank[bank < 0] = 0.0  # score rows are nonnegative
     cidx = rng.integers(0, U8, size=(Q, Tq)).astype(np.int32)
-    # ascending distinct tiles per query, heavy overlap across queries
     tsel = np.sort(
-        np.stack(
-            [rng.choice(G // 2, size=B, replace=False) for _ in range(Q)]
-        ),
+        np.stack([rng.choice(G - 8, size=B, replace=False)
+                  for _ in range(Q)]),
         axis=1,
     ).astype(np.int32)
     flags = (
         rng.integers(0, 16, size=(Q, Tq)).astype(np.int32)
-        if boolean
-        else None
+        if boolean else None
     )
-    args = (jnp.asarray(bank), jnp.asarray(cidx), jnp.asarray(tsel))
-    fl = jnp.asarray(flags) if boolean else None
-    a = pallas_gather_rescore(*args, fl, interpret=True)
-    b = pallas_union_rescore(*args, fl, interpret=True)
-    if not boolean:
-        a, b = (a,), (b,)
-    for x, y in zip(a, b):
-        assert np.array_equal(np.asarray(x), np.asarray(y))
-
-
-@pytest.mark.parametrize("boolean", [False, True])
-def test_chunked_resident_rescore_matches_single(boolean, monkeypatch):
-    """Batches whose slab set exceeds the resident budget split the tile
-    axis into B-chunks, each its own resident call (the 10M mixed tier's
-    Q=896 B=146 U8=40 shape compiled a 19.21 MB scoped allocation and
-    OOM'd the 16 MB VMEM budget as ONE call). Accumulation is per
-    (query, tile), so chunking must be bit-invariant."""
-    import jax.numpy as jnp
-
-    from diagon_tpu.ops.pallas import gather_rescore as gr
-
-    rng = np.random.Generator(np.random.PCG64(9))
-    G, U8, LANE, Q, Tq, B = 48, 16, 128, 8, 5, 40
-    bank = rng.normal(size=(G, U8, LANE)).astype(np.float32)
-    bank[:, 0, :] = 0.0
-    bank[bank < 0] = 0.0
-    cidx = rng.integers(0, U8, size=(Q, Tq)).astype(np.int32)
-    tsel = np.sort(
-        np.stack([rng.choice(G, size=B, replace=False) for _ in range(Q)]),
-        axis=1,
-    ).astype(np.int32)
-    flags = (
-        rng.integers(0, 16, size=(Q, Tq)).astype(np.int32)
-        if boolean
-        else None
+    got = rescore_compact(
+        jnp.asarray(bank), jnp.asarray(cidx), jnp.asarray(tsel),
+        None if flags is None else jnp.asarray(flags),
     )
-    args = (jnp.asarray(bank), jnp.asarray(cidx), jnp.asarray(tsel))
-    fl = jnp.asarray(flags) if boolean else None
-    whole = gr.pallas_gather_rescore(*args, fl, interpret=True)
-    # slab bytes/tile = 2*U8*LANE*4 = 16 KiB; a 300 KiB budget admits
-    # bc=18 tiles/chunk (>= RESIDENT_MIN_CHUNK) while the whole B=40
-    # slab set (640 KiB) exceeds it -> chunks of 18/18/4
-    monkeypatch.setattr(gr, "RESIDENT_VMEM_BUDGET", 300 << 10)
-    chunked = gr.pallas_gather_rescore(*args, fl, interpret=True)
+    want = _rescore_numpy(bank, cidx, tsel, flags)
     if not boolean:
-        whole, chunked = (whole,), (chunked,)
-    for x, y in zip(whole, chunked):
-        assert np.array_equal(np.asarray(x), np.asarray(y))
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert np.asarray(x).shape == (Q, B, LANE)
+        assert np.array_equal(np.asarray(x), y)
 
 
 def test_query_cache_p1_replay_bit_exact():

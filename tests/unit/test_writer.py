@@ -311,3 +311,29 @@ def test_searcher_accepts_leaf_contexts(tmp_path):
     r = DirectoryReader.open(FSDirectory(str(tmp_path)))
     s = IndexSearcher(r.leaves())  # LeafReaderContext list, like the ref API
     assert s.search(TermQuery("b", "alpha"), k=5).total_hits == 1
+
+
+def test_add_segment_commit_reopen(tmp_path):
+    """A segment built outside the writer (the bulk builder) commits
+    under the writer's next name beside flushed segments, and reopens
+    with identical search results."""
+    from diagon_tpu.bench.bulk_build import build_synthetic_segment
+
+    seg = build_synthetic_segment(num_docs=600)
+    want = OracleSearcher([seg]).search(TermQuery("body", "oil"), 10)
+    d = FSDirectory(tmp_path / "idx")
+    with IndexWriter(d, IndexWriterConfig(merge_scheduler="serial")) as w:
+        w.add_document(_doc("oil price"))
+        w.flush()
+        w.add_segment(seg)
+        w.commit()
+    r = DirectoryReader.open(d)
+    assert [s.num_docs for s in r.segments_data()] == [1, 600]
+    assert len({s.name for s in r.segments_data()}) == 2
+    got = OracleSearcher([r.segments_data()[1]]).search(
+        TermQuery("body", "oil"), 10
+    )
+    assert got.doc_ids() == want.doc_ids()
+    assert [x.score for x in got.score_docs] == [
+        x.score for x in want.score_docs
+    ]
